@@ -1,4 +1,4 @@
-"""Controlled same-day reference-baseline study (VERDICT r3 item 1b).
+"""Controlled same-day reference-baseline study.
 
 Round 3 left the deep-rung C++ baselines unsettled: clean-but-separate
 timings gave mouse 58.4 guides/s and human 339 guides/s at nearly equal
@@ -17,9 +17,9 @@ The same 4,096-query file the ladder rows used (bench_data/scale/
 {tag}.q1.txt) is reused verbatim; 1-minute load average and /proc/stat
 cpu time are sampled around every run so a loaded host is visible in the
 record. Per-round rates plus min/median summaries are appended to
-scripts/baseline_study_results.jsonl; BASELINE.md carries the outcome.
+scripts/baseline_study_results.jsonl.
 
-Run on a QUIET host (no concurrent TPU compiles or index builds).
+Run on a QUIET host (no concurrent compiles or index builds).
 
 Usage: python scripts/baseline_study.py [--rounds 3] [--rungs 2.6 3.1]
 """

@@ -41,9 +41,9 @@ def main():
                          "are the rung's own candidate guides")
     args = ap.parse_args()
 
-    from crackling_tpu.codec import strings_to_sigs
-    from crackling_tpu.index import load_native
-    from crackling_tpu.ops.issl_compact import CompactIsslScorer
+    from crackling_jax.codec import strings_to_sigs
+    from crackling_jax.index import load_native
+    from crackling_jax.ops.issl_compact import CompactIsslScorer
 
     if args.gbp is not None:
         # the rung's own query derivation (scale_rung.py): DISTINCT
@@ -51,7 +51,7 @@ def main():
         # queries and inflate the multi-hit populations being measured
         from scale_rung import DATA as SCALE_DATA
 
-        from crackling_tpu.index.extract import find_candidate_guides_seq
+        from crackling_jax.index.extract import find_candidate_guides_seq
 
         tag = f"g{args.gbp:g}b"
         legacy = args.gbp == 2.6 and (SCALE_DATA / "scale.index.npz").exists()

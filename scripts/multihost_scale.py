@@ -1,8 +1,8 @@
 """Multihost scoring at bench scale: 2 real processes on the 27 Mbp index.
 
-VERDICT r4 item 7: the 2-process e2e test (tests/test_distributed.py)
-runs a toy index; this script gives the multihost path a scale
-datapoint. Two real processes initialize ``jax.distributed`` over
+The 2-process e2e test (tests/test_distributed.py) runs a toy index;
+this script gives the multihost path a scale datapoint. Two real
+processes initialize ``jax.distributed`` over
 localhost, build the ('host', 'q', 'shard') CPU mesh, load only their
 own site ranges of the 5.06M-site bench .issl (per-process range
 loading, parallel/distributed.load_index_range), and score a bench
@@ -10,10 +10,10 @@ query slice — the per-query partial MIT/CFD sums psum across the
 process boundary. Process 0 records throughput; the parent checks
 verdict agreement vs the reference binary on the same queries.
 
-The engine is the sharded order-exact XLA scorer (the pallas engines
-need a real TPU; on the CPU mesh they only run in interpret mode, which
-is not meaningful at this scale). Throughput here measures the
-multihost *machinery* at scale, not TPU speed.
+The engine is the sharded order-exact XLA scorer on a CPU mesh: each
+worker forces the CPU backend (``cpu_devices``), so no process opens a
+GPU and the two never contend for one card. Throughput here measures the
+multihost *machinery* at scale, not accelerator speed.
 
 Usage: python scripts/multihost_scale.py [--queries 4096]
 Appends a record to scripts/multihost_scale_results.jsonl.
@@ -40,7 +40,7 @@ WORKER = textwrap.dedent("""
     pid = int(sys.argv[1]); port = sys.argv[2]
     issl = sys.argv[3]; qnpz = sys.argv[4]; out = sys.argv[5]
     sys.path.insert(0, sys.argv[6])
-    from crackling_tpu.parallel.distributed import (
+    from crackling_jax.parallel.distributed import (
         initialize, host_mesh, multihost_scorer)
     initialize(f"localhost:{port}", 2, pid, cpu_devices=2)
     import jax
@@ -82,7 +82,7 @@ def main():
         if not p.exists():
             raise SystemExit(f"missing {p} — run `python bench.py` once "
                              "to build the bench dataset")
-    from crackling_tpu.codec import sigs_to_strings, strings_to_sigs
+    from crackling_jax.codec import sigs_to_strings, strings_to_sigs
 
     qstrs = qfile.read_text().split()[: args.queries]
     queries = strings_to_sigs(qstrs, 20)
@@ -123,7 +123,7 @@ def main():
     ref_mit = np.array([float(l.split("\t")[1]) for l in lines])
     ref_cfd = np.array([float(l.split("\t")[2]) for l in lines])
 
-    from crackling_tpu.ops.issl_jax import verdicts
+    from crackling_jax.ops.issl_jax import verdicts
 
     ours_ok = verdicts(mit, cfd, 75.0, "and")
     ref_ok = verdicts(ref_mit, ref_cfd, 75.0, "and")

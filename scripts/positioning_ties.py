@@ -1,4 +1,4 @@
-"""Quantify the positioning tie-break exposure (VERDICT r3 item 8).
+"""Quantify the positioning tie-break exposure.
 
 The Bowtie2 replacement (pipeline/positioning.py) records, per guide,
 the AGG-variant read's best alignment — fewest mismatches, then LOWEST
@@ -41,7 +41,7 @@ def count_at_dist(reads, dist, win_sigs, win_pos, chunk=512):
     """Number of window alignments of each read at exactly-``dist``
     substitutions (both strands) — the size of the equal-score set the
     tie-break chooses from."""
-    from crackling_tpu.pipeline.positioning import (_dist_keys_min_pos,
+    from crackling_jax.pipeline.positioning import (_dist_keys_min_pos,
                                                     rc_sig23, window_range)
 
     shifts = np.uint64(2) * np.arange(23, dtype=np.uint64)
@@ -98,8 +98,8 @@ def main():
 
     from scale_rung import DATA, make_genome
 
-    from crackling_tpu.index.extract import find_candidate_guides_seq
-    from crackling_tpu.pipeline.positioning import (GenomeIndex,
+    from crackling_jax.index.extract import find_candidate_guides_seq
+    from crackling_jax.pipeline.positioning import (GenomeIndex,
                                                     best_alignment,
                                                     position_guides,
                                                     variant_sigs)

@@ -33,7 +33,7 @@ def main():
     ap.add_argument("--gbp", type=float, default=2.6)
     ap.add_argument("--bench", action="store_true",
                     help="profile the 27 Mbp bench operating point "
-                         "(bench_data/g27m.*) instead of a scale rung")
+                         "(bench.bench_point) instead of a scale rung")
     ap.add_argument("--page", type=int, default=16384)
     ap.add_argument("--caps", default=None,
                     help="comma-separated 7 caps; default: the mouse-"
@@ -43,21 +43,16 @@ def main():
 
     from scale_rung import DATA as SCALE_DATA
 
-    from crackling_tpu.codec import strings_to_sigs
-    from crackling_tpu.index import load_native
-    from crackling_tpu.index.extract import find_candidate_guides_seq
-    from crackling_tpu.ops import issl_compact
-    from crackling_tpu.ops.issl_compact import CompactIsslScorer
+    from crackling_jax.index import load_native
+    from crackling_jax.index.extract import find_candidate_guides_seq
+    from crackling_jax.ops import issl_compact
+    from crackling_jax.ops.issl_compact import CompactIsslScorer
 
     if args.bench:
-        index = load_native(str(ROOT / "bench_data" / "g27m.index.npz"))
-        qfile = ROOT / "bench_data" / f"g27m.queries{args.page}.txt"
-        if qfile.exists():
-            sigs = strings_to_sigs(qfile.read_text().split(), 20)
-        else:
-            sigs = strings_to_sigs(
-                (ROOT / "bench_data" / "g27m.queries65536.txt")
-                .read_text().split()[: args.page], 20)
+        from bench import bench_point
+
+        _, index, sigs, _ = bench_point()
+        sigs = sigs[: args.page]
     else:
         tag = f"g{args.gbp:g}b"
         legacy = (args.gbp == 2.6

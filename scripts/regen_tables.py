@@ -1,27 +1,23 @@
-"""Regenerate the published performance tables from the measurement records.
+"""Regenerate the published performance table from the measurement records.
 
-VERDICT r3 and r4 both caught the hand-maintained README/BASELINE tables
-lagging the repo's own jsonl evidence (a load-corrupted 58.4 guides/s
-mouse baseline survived two rounds as a ~317x headline). This script
-makes the published record a pure function of the records:
+Hand-maintained tables lag the records, so the published ladder is a
+pure function of them:
 
 * ladder rows come from the LATEST entry per (rung, engine) in
   ``scripts/scale_rung_results.jsonl``;
 * the deep-rung (2.6/3.1 Gbp) reference baselines come from the
   controlled interleaved study (``baseline_study_results.jsonl`` —
-  best-of-rounds with load recorded), not ad-hoc single timings;
-* the bench-point row comes from the newest ``BENCH_r*.json``.
+  best-of-rounds with load recorded), not ad-hoc single timings.
 
-It rewrites the blocks between ``<!-- BEGIN GENERATED: perf-ladder -->``
-/ ``<!-- END GENERATED: perf-ladder -->`` markers in README.md and
-BASELINE.md. Run after any measurement lands:
+It rewrites the block between ``<!-- BEGIN GENERATED: perf-ladder -->``
+/ ``<!-- END GENERATED: perf-ladder -->`` markers in README.md. Run
+after any measurement lands:
 
     python scripts/regen_tables.py        # rewrite in place
     python scripts/regen_tables.py --check   # CI mode: fail if stale
 """
 
 import argparse
-import glob
 import json
 import re
 import sys
@@ -80,18 +76,6 @@ def controlled_baselines():
     return out
 
 
-def latest_bench():
-    paths = sorted(glob.glob(str(ROOT / "BENCH_r*.json")))
-    if not paths:
-        return None
-    rec = json.loads(Path(paths[-1]).read_text())
-    rec = rec.get("parsed", rec)   # driver artifacts nest the JSON line
-    if "value" not in rec:
-        return None
-    rec["_round"] = Path(paths[-1]).stem.split("_r")[-1]
-    return rec
-
-
 def fmt_rate(x):
     if x is None:
         return "—"
@@ -120,8 +104,11 @@ def baseline_of(gbp, recs, controlled):
 def build_ladder_table():
     rungs = latest_rung_rows()
     controlled = controlled_baselines()
+    if not rungs:
+        return ("No ladder record yet: `scripts/scale_rung.py` appends one "
+                "per rung and engine.")
     lines = [
-        "| Genome scale | distinct sites | best engine (1 chip) | "
+        "| Genome scale | distinct sites | best engine (1 GPU) | "
         "pipeline path (hybrid) | reference (4 cores) | best ratio |",
         "|---|---|---|---|---|---|",
     ]
@@ -152,23 +139,6 @@ def build_ladder_table():
     return "\n".join(lines)
 
 
-def build_bench_note():
-    rec = latest_bench()
-    if rec is None:
-        return ""
-    extra = ""
-    if "ours_dispersion" in rec:
-        extra = (f" (best-two dispersion ours "
-                 f"{rec['ours_dispersion']:.1%} / reference "
-                 f"{rec['ref_dispersion']:.1%}, interleaved rounds)")
-    return (
-        f"Driver-recorded bench point (`BENCH_r{rec['_round']}.json`, "
-        f"27 Mbp / 5.06 M sites / 64 K queries): "
-        f"**{rec['value']:,.0f} guides/s/chip, "
-        f"{rec['vs_baseline']:,.1f}x** the reference on the same host"
-        + extra + ".")
-
-
 MARK = ("<!-- BEGIN GENERATED: perf-ladder -->",
         "<!-- END GENERATED: perf-ladder -->")
 
@@ -176,25 +146,19 @@ MARK = ("<!-- BEGIN GENERATED: perf-ladder -->",
 def generated_block():
     controlled = controlled_baselines()
     note = ""
-    if controlled:
+    if controlled and latest_rung_rows():
         date = next(iter(controlled.values()))[2]
         note = (
             "\nDeep-rung reference baselines are from the controlled "
             f"interleaved study of {date} "
             "(`scripts/baseline_study_results.jsonl`: 3 rounds "
             "alternating mouse/human with host load recorded; best round "
-            "quoted, so the ratios are conservative). Earlier ad-hoc "
-            "deep-rung baselines (58.4 and 6.1 guides/s) were "
-            "load-corrupted and are superseded.\n")
-    parts = [MARK[0],
-             "<!-- Generated by scripts/regen_tables.py — edit the jsonl "
-             "records, not this block. -->",
-             "", build_ladder_table(), note]
-    bench = build_bench_note()
-    if bench:
-        parts.append(bench)
-    parts.append(MARK[1])
-    return "\n".join(parts)
+            "quoted, so the ratios are conservative).\n")
+    return "\n".join([
+        MARK[0],
+        "<!-- Generated by scripts/regen_tables.py — edit the jsonl "
+        "records, not this block. -->",
+        "", build_ladder_table(), note, MARK[1]])
 
 
 def splice(path, block):
@@ -214,7 +178,7 @@ def main():
     args = ap.parse_args()
     block = generated_block()
     stale = []
-    for name in ("README.md", "BASELINE.md"):
+    for name in ("README.md",):
         path = ROOT / name
         old, new = splice(path, block)
         if old != new:

@@ -1,5 +1,5 @@
 """Quantify how far RECONSTRUCTED Turner-table entries can move the
-mm10db secondary-structure verdict (VERDICT r2 item 7).
+mm10db secondary-structure verdict.
 
 The default energy model marks its dangle / first-mismatch / tetraloop
 magnitudes RECONSTRUCTED (ops/rna_params.py module docstring): right
@@ -18,7 +18,7 @@ rebuild from the perturbed sources, so the error propagates exactly the
 way a reconstruction error would. Per draw we record the MFE shift
 distribution and the verdict flip rate through the full
 SecondaryStructureGate (structure regex + thresholds included), and
-decompose the verdict pathway (VERDICT r3 item 7): the reference routes
+decompose the verdict pathway: the reference routes
 a construct through the -30 threshold when the canonical-scaffold
 structure regex matches and through the -18 threshold otherwise
 (Crackling.py:481-497), so a perturbation can flip a verdict two ways —
@@ -77,9 +77,9 @@ def perturb_sources(rp, rng, delta):
 def run_study(targets, deltas, draws, backend="native", seed=7):
     import re
 
-    import crackling_tpu.ops.rna_params as rp
-    from crackling_tpu.constants import PATTERN_RNA_STRUCTURE
-    from crackling_tpu.pipeline.secondary_structure import \
+    import crackling_jax.ops.rna_params as rp
+    from crackling_jax.constants import PATTERN_RNA_STRUCTURE
+    from crackling_jax.pipeline.secondary_structure import \
         SecondaryStructureGate
 
     pat = re.compile(PATTERN_RNA_STRUCTURE)
@@ -169,7 +169,7 @@ def main():
     ap.add_argument("--deltas", type=float, nargs="+",
                     default=[0.25, 0.5])
     ap.add_argument("--backend", default="native",
-                    choices=("native", "tpu", "vienna"))
+                    choices=("native", "jax", "vienna"))
     args = ap.parse_args()
 
     targets = make_targets(args.n)

@@ -1,26 +1,26 @@
-"""Roofline accounting for the compact/dense engines at the bench point.
+"""Roofline accounting for the compact engine's finder at the bench point.
 
-VERDICT r4 item 6: give the headline an efficiency denominator. For a
-measured page rate this script computes what the page *moves and
-multiplies*, and compares against the chip's peaks:
+For a measured finder time this script computes what the finder *moves
+and computes* per query page, and compares it with the card's peaks:
 
-* **HBM bytes/page**: the kernels stream the three packed entry planes
-  (lo, hi, occ — 12 B per padded site-slice entry) exactly once per
-  query page, plus the per-bucket weight blocks and the moment output.
-* **MXU MACs/page**: the mask matmul contracts the 128-sublane one-hot
-  decomposition against qb weight columns per 128-site lane group —
-  128 x qb MACs per padded entry (the dense engine runs 5 such matmuls:
-  mask, mit hi/lo, cfd hi/lo).
-* **VPU ops/page**: the one-hot unpack builds a (128, 128) code-compare
-  tile per lane group (~6 elementwise ops per cell) — this is the term
-  that dominates the kernel in practice.
+* **device-memory bytes/page**: each (slice-bucket, chunk, query tile)
+  block reads its chunk's packed lo/hi words (8 B per entry) once, so
+  the entry planes are read ``qb / 64`` times per page (L2 serves part
+  of that; the count is an upper bound on DRAM traffic);
+* **integer ops/page**: every (entry, query slot) pair of a bucket costs
+  ``OPS_PER_PAIR`` integer operations in ``_hit_mask`` and the moment
+  reductions (XOR, pair-OR collapse, two popcounts, the SWAR dedup
+  test, the compares and the count/min/max updates), counted in the
+  source; the compiler fuses some of them (three-input logic ops), so
+  the share is an upper estimate. The peak is the SM's issue rate: four
+  warp schedulers each issue one 32-lane instruction per clock.
 
-v5e peaks (public spec): 394 bf16 TFLOP/s, 819 GB/s HBM; VPU ~ 8x128
-lanes x 4 ALUs x 940 MHz ~ 3.9 Tops/s.
+Peaks come from ``PEAKS``, keyed by ``jax.Device.device_kind``; a card
+that is not in the table is an error.
 
 Usage:
-    python scripts/roofline.py --rate 295000 [--qb 384]
-Appends a record to scripts/roofline_results.jsonl and prints it.
+    python scripts/roofline.py --device-kind "NVIDIA H100 80GB HBM3" \\
+        --finder-ms 9.3 [--index bench_data/...index.npz] [--qb 320]
 """
 
 import argparse
@@ -33,76 +33,69 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-PEAK_BF16_FLOPS = 394e12
-PEAK_HBM_BPS = 819e9
-PEAK_VPU_OPS = 3.9e12
+# Peaks at the card's boost clock and full power limit: NVIDIA H100 data
+# sheet (memory bandwidth) and the Hopper architecture white paper (SM
+# count, four schedulers x 32 lanes issued per SM per clock, boost
+# clock). A card run below its maximum power limit cannot hold the boost
+# clock under load.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": dict(part="H100 SXM5", hbm_bps=3.35e12,
+                                  issue_ops=132 * 128 * 1.98e9),
+    "NVIDIA H100 PCIe": dict(part="H100 PCIe", hbm_bps=2.0e12,
+                             issue_ops=114 * 128 * 1.755e9),
+}
+
+OPS_PER_PAIR = 29
+TILE_Q = 64
+
+
+def peaks_for(device_kind: str) -> dict:
+    if device_kind not in PEAKS:
+        raise SystemExit(f"no peaks for device kind {device_kind!r}; known: "
+                         f"{sorted(PEAKS)}")
+    return PEAKS[device_kind]
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--index", default=str(ROOT / "bench_data" / "g27m.index.npz"))
-    ap.add_argument("--rate", type=float, required=True,
-                    help="measured guides/s at this operating point")
-    ap.add_argument("--page", type=int, default=65536)
-    ap.add_argument("--qb", type=int, default=None,
-                    help="padded per-bucket query occupancy (default: "
-                         "recomputed from the bench query file)")
-    ap.add_argument("--engine", default="compact",
-                    choices=("compact", "dense"))
+    ap.add_argument("--device-kind", required=True)
+    ap.add_argument("--finder-ms", type=float, required=True,
+                    help="measured finder time for one query page")
+    ap.add_argument("--index", default=None,
+                    help="native index (.npz); default: the bench point")
+    ap.add_argument("--qb", type=int, required=True,
+                    help="padded per-bucket query occupancy of the page")
     args = ap.parse_args()
+    peaks = peaks_for(args.device_kind)
 
-    from crackling_tpu.index import load_native
-    from crackling_tpu.ops.issl_dense import ALIGN, plan_query_occupancy
+    from crackling_jax.index import load_native
 
-    index = load_native(args.index)
+    if args.index:
+        index = load_native(args.index)
+    else:
+        import bench
+
+        index = bench.bench_point()[1]
     lens = np.diff(index.bucket_offsets, axis=1)
-    alens = -(-lens // ALIGN) * ALIGN
-    epad = int(alens.sum(axis=1).max()) + 4096
-    epad = -(-epad // ALIGN) * ALIGN
-    S = index.slice_count
-
-    qb = args.qb
-    if qb is None:
-        qfile = ROOT / "bench_data" / f"g27m.queries{args.page}.txt"
-        if qfile.exists():
-            from crackling_tpu.codec import strings_to_sigs
-
-            sigs = strings_to_sigs(qfile.read_text().split()[: args.page], 20)
-            qb, _ = plan_query_occupancy(sigs, S, index.bucket_count, 8,
-                                         1 << 20)
-        else:
-            qb = -(-int(args.page / index.bucket_count * 1.3) // 64) * 64
-    entries = S * epad                      # padded site-slice entries
-
-    page_s = args.page / args.rate
-    hbm_bytes = entries * 12                # 3 u32 planes, streamed once
-    n_matmuls = 1 if args.engine == "compact" else 5
-    macs = entries * 128 * qb * n_matmuls
-    flops = 2 * macs
-    vpu_ops = entries * 128 * 6             # one-hot unpack tile work
-
+    entries = int(lens.sum())                 # site-slice entries scanned
+    pairs = entries * args.qb
+    seconds = args.finder_ms / 1e3
+    dram_bytes = entries * 8 * (args.qb // TILE_Q)
+    ops = pairs * OPS_PER_PAIR
     rec = {
-        "engine": args.engine,
-        "index": Path(args.index).name,
+        "device_kind": args.device_kind,
+        "part": peaks["part"],
         "distinct_sites": int(index.num_sites),
-        "epad": epad,
-        "qb": int(qb),
-        "page": args.page,
-        "measured_guides_per_s": args.rate,
-        "page_seconds": round(page_s, 4),
-        "hbm_gb_per_page": round(hbm_bytes / 1e9, 3),
-        "hbm_gbps_achieved": round(hbm_bytes / page_s / 1e9, 2),
-        "hbm_utilization": round(hbm_bytes / page_s / PEAK_HBM_BPS, 4),
-        "mxu_tflops_per_page": round(flops / 1e12, 3),
-        "mxu_utilization": round(flops / page_s / PEAK_BF16_FLOPS, 4),
-        "vpu_utilization_est": round(vpu_ops / page_s / PEAK_VPU_OPS, 4),
-        "bound": None,
+        "qb": args.qb,
+        "finder_ms": args.finder_ms,
+        "pairs_per_page": pairs,
+        "dram_gb_per_page_upper": round(dram_bytes / 1e9, 3),
+        "dram_share_upper": round(dram_bytes / seconds / peaks["hbm_bps"], 4),
+        "int_tops_per_page": round(ops / 1e12, 3),
+        "issue_share_upper": round(ops / seconds / peaks["issue_ops"], 4),
     }
-    utils = {"hbm": rec["hbm_utilization"], "mxu": rec["mxu_utilization"],
-             "vpu": rec["vpu_utilization_est"]}
-    rec["bound"] = max(utils, key=utils.get)
-    with open(ROOT / "scripts" / "roofline_results.jsonl", "a") as fp:
-        fp.write(json.dumps(rec) + "\n")
+    rec["bound"] = ("issue" if rec["issue_share_upper"]
+                    >= rec["dram_share_upper"] else "dram")
     print(json.dumps(rec, indent=2))
 
 

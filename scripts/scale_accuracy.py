@@ -1,21 +1,21 @@
 """Quantify fast-engine score deviation at genome scale vs the reference
 binary output saved by scale_rung.py.
 
-The mouse rung exposed dense-engine drift at depth (accepted-score
-agreement 0.899 at |d|<0.02): the bf16-split log-matmul error compounds
-with bucket depth and occurrence mass. This probe loads a rung's cached
-index + query set + reference output and reports, per engine:
+Score error can compound with bucket depth and occurrence mass. This
+probe loads a rung's cached index + query set + reference output and
+reports, per engine:
 
-* throughput (min over repeats, real chip),
+* throughput (min over repeats, on the accelerator),
 * verdict agreement and max/mean |score delta| over ACCEPTED guides
   (the reference's full sums — rejected guides carry frozen early-exit
   partials, a documented Tier-3 deviation, so deltas there are
   expected and meaningless),
 * the count of guides whose fast score sits further than the hybrid
-  re-score band (1.0) from the threshold *on the wrong side* — the
-  only way a hybrid verdict can differ from the binary.
+  re-score band (the compact engine's score_band) from the threshold
+  *on the wrong side* — the only way a hybrid verdict can differ from
+  the binary.
 
-Usage: python scripts/scale_accuracy.py [--tag g2.6b] [--engines dense compact]
+Usage: python scripts/scale_accuracy.py [--tag g2.6b] [--engines compact]
 Appends one JSON line per engine to scripts/scale_accuracy_results.jsonl.
 """
 
@@ -39,14 +39,15 @@ def log(msg):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="g2.6b")
-    ap.add_argument("--engines", nargs="+", default=["compact", "dense"])
+    ap.add_argument("--engines", nargs="+", default=["compact"],
+                    choices=["compact"])
     ap.add_argument("--threshold", type=float, default=75.0)
-    ap.add_argument("--band", type=float, default=1.0)
+    ap.add_argument("--band", type=float, default=0.05)
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
 
-    from crackling_tpu.codec import strings_to_sigs
-    from crackling_tpu.index import load_native
+    from crackling_jax.codec import strings_to_sigs
+    from crackling_jax.index import load_native
 
     refout = sorted(DATA.glob(f"{args.tag}.refout*.txt"))
     if not refout:
@@ -66,20 +67,15 @@ def main():
     ref_ok = (ref_mit >= thr) & (ref_cfd >= thr)
     results = []
     for name in args.engines:
-        if name == "dense":
-            from crackling_tpu.ops.issl_dense import DenseIsslScorer
-            eng = DenseIsslScorer(index, max_dist=4)
-        elif name == "compact":
-            from crackling_tpu.ops.issl_compact import CompactIsslScorer
-            try:
-                eng = CompactIsslScorer(index, max_dist=4)
-            except ValueError as e:
-                log(f"compact unavailable: {e}")
-                results.append({"tag": args.tag, "engine": name,
-                                "error": str(e)})
-                continue
-        else:
-            raise SystemExit(f"unknown engine {name}")
+        from crackling_jax.ops.issl_compact import (CompactIsslScorer,
+                                                    DepthBoundError)
+        try:
+            eng = CompactIsslScorer(index, max_dist=4)
+        except DepthBoundError as e:
+            log(f"compact unavailable: {e}")
+            results.append({"tag": args.tag, "engine": name,
+                            "error": str(e)})
+            continue
         t0 = time.time()
         mit, cfd = eng.score(queries)
         log(f"{name}: compile+warm {time.time() - t0:.0f}s")

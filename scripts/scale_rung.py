@@ -7,19 +7,18 @@ the full memory-bounded data path:
 
   1. extractOfftargets CLI (streaming scan + external sort, text output)
   2. createIsslIndex CLI   (streamed text -> index, distinct-bounded)
-  3. TPU scoring bench on the real chip vs the reference binary
+  3. the scoring bench on the accelerator vs the reference binary
 
 Peak-RSS of each stage is recorded via /usr/bin/time -v. Results are
-printed as a JSON line and appended to scripts/scale_rung_results.jsonl;
-BASELINE.md summarizes the ladder.
+printed as a JSON line and appended to scripts/scale_rung_results.jsonl.
 
-Any rung of the BASELINE.md ladder can be run by size: --gbp 0.0046
+Any rung of the ladder can be run by size: --gbp 0.0046
 (E. coli scale), 0.012 (S. cerevisiae), 0.14 (D. melanogaster), 2.6
 (mouse GRCm39), 3.1 (human GRCh38). Artifacts are tagged per rung so
 rungs coexist under bench_data/scale/.
 
 Usage: python scripts/scale_rung.py [--gbp 2.6] [--pool-mbp 600]
-                                    [--engine pallas|dense]
+                                    [--engine compact,hybrid]
 """
 
 import argparse
@@ -53,7 +52,7 @@ def timed_cli(args, tag):
     with tempfile.TemporaryFile(mode="w+") as out, \
             tempfile.TemporaryFile(mode="w+") as err:
         p = subprocess.Popen(
-            [sys.executable, "-m", "crackling_tpu.utils.run_cli", *args],
+            [sys.executable, "-m", "crackling_jax.utils.run_cli", *args],
             stdout=out, stderr=err, text=True, cwd=ROOT)
         peak = 0
         while p.poll() is None:
@@ -107,15 +106,11 @@ def main():
     ap.add_argument("--pool-mbp", type=int, default=600)
     ap.add_argument("--queries", type=int, default=16384)
     ap.add_argument("--ref-queries", type=int, default=512)
-    ap.add_argument("--engine", default="pallas",
-                    help="comma-separated list from {pallas, dense, "
-                         "compact, hybrid, hybrid-compact, hybrid-dense} "
-                         "— all timed in one process on one index "
-                         "upload. hybrid = the pipeline path: "
-                         "engine=auto's fast-engine pick wrapped in the "
-                         "bit-exact near-threshold re-score; "
-                         "hybrid-compact / hybrid-dense pin the fast "
-                         "path explicitly (crossover-tuning)")
+    ap.add_argument("--engine", default="hybrid",
+                    help="comma-separated list from {compact, hybrid} — "
+                         "all timed in one process on one index upload. "
+                         "hybrid = the pipeline path: the compact engine "
+                         "wrapped in the exact near-threshold re-score")
     ap.add_argument("--method", default="and",
                     choices=("mit", "cfd", "and", "or", "avg"),
                     help="scoring method for our engine, the reference "
@@ -131,8 +126,7 @@ def main():
                          "timing a second engine on a deep rung without "
                          "repaying hours of C++ baseline")
     args = ap.parse_args()
-    valid = {"pallas", "dense", "compact", "hybrid", "hybrid-compact",
-             "hybrid-dense"}
+    valid = {"compact", "hybrid"}
     bad = set(args.engine.split(",")) - valid
     if bad:
         ap.error(f"unknown engine(s): {sorted(bad)}")
@@ -167,7 +161,7 @@ def main():
         results["build_s"] = round(dt, 1)
         results["build_rss_gb"] = round(rss, 2)
 
-    from crackling_tpu.index import load_native, write_reference_issl
+    from crackling_jax.index import load_native, write_reference_issl
 
     log("loading index")
     index = load_native(str(index_npz))
@@ -179,8 +173,8 @@ def main():
         write_reference_issl(index, str(issl))
 
     # queries: candidate guides from the first Mbp of the genome
-    from crackling_tpu.codec import sigs_to_strings
-    from crackling_tpu.index.extract import find_candidate_guides_seq
+    from crackling_jax.codec import sigs_to_strings
+    from crackling_jax.index.extract import find_candidate_guides_seq
 
     with open(genome) as fp:
         fp.readline()
@@ -192,48 +186,27 @@ def main():
     queries = queries[: args.queries]
     log(f"{queries.shape[0]} queries")
 
-    # ---- our engine(s) on the real chip ----
+    # ---- our engine(s) on the accelerator ----
     import jax
 
     log(f"devices: {jax.devices()}")
 
     def make_engine(name, res):
-        if name == "dense":
-            from crackling_tpu.ops.issl_dense import \
-                DenseIsslScorer as Engine
-        elif name == "compact":
-            from crackling_tpu.ops.issl_compact import \
-                CompactIsslScorer as Engine
-        elif name.startswith("hybrid"):
-            # the pipeline path: a fast engine wrapped in
-            # HybridIsslScorer's near-threshold bit-exact re-score (what
-            # `[tpu] engine = auto` actually runs). Bare "hybrid" uses
-            # select_auto_engine's pick; the suffixed forms pin it
-            # (crossover-tuning measurements).
-            from crackling_tpu.ops.issl_compact import CompactIsslScorer
-            from crackling_tpu.ops.issl_dense import (DenseIsslScorer,
-                                                      HybridIsslScorer)
-            from crackling_tpu.pipeline.run import select_auto_engine
+        from crackling_jax.ops.issl_compact import CompactIsslScorer
 
-            if name == "hybrid":
-                fast_name = select_auto_engine(index, jax.default_backend())
-            else:
-                fast_name = name.split("-", 1)[1]
-            log(f"hybrid fast path: {fast_name}")
-            res["hybrid_fast"] = fast_name
-            fast_cls = (CompactIsslScorer if fast_name == "compact"
-                        else DenseIsslScorer)
+        if name == "compact":
+            return CompactIsslScorer
 
-            def Engine(index, max_dist):
-                hyb = HybridIsslScorer(index, max_dist=max_dist,
-                                       method=args.method, threshold=75.0,
-                                       dense=fast_cls(index,
-                                                      max_dist=max_dist))
-                res["hybrid_band"] = hyb.band
-                return hyb
-        else:
-            from crackling_tpu.ops.issl_pallas import \
-                PallasIsslScorer as Engine
+        # the pipeline path: the compact engine wrapped in
+        # HybridIsslScorer's near-threshold exact re-score (what
+        # `[accelerator] engine = auto` runs where the kernel compiles)
+        from crackling_jax.ops.hybrid import HybridIsslScorer
+
+        def Engine(index, max_dist):
+            hyb = HybridIsslScorer(index, max_dist=max_dist,
+                                   method=args.method, threshold=75.0)
+            res["hybrid_band"] = hyb.band
+            return hyb
         return Engine
 
     def time_engine(name, res):
@@ -332,7 +305,7 @@ def main():
     # parity at scale: full-scan engines report complete sums where the
     # reference freezes early-exit partials for REJECTED guides (PARITY
     # Tier 3), so measure verdict agreement plus accepted-score agreement
-    from crackling_tpu.ops.issl_jax import verdicts
+    from crackling_jax.ops.issl_jax import verdicts
 
     lines = out1.strip().split("\n")
     ref_mit = np.array([float(l.split("\t")[1]) for l in lines])

@@ -1,34 +1,32 @@
-"""Adversarial probe of the hybrid re-score band (VERDICT r2 item 8).
+"""Adversarial probe of the hybrid re-score band.
 
 The HybridIsslScorer re-scores queries whose fast-engine score lands
-within ``band`` (default 1.0) of the threshold through the bit-exact
-engine (ops/issl_dense.py:458-530). That band is safe only while the
-fast engines' worst-case score deviation stays far below it. This module
+within ``band`` (the fast engine's ``score_band``) of the threshold
+through the exact path (ops/hybrid.py). That band is safe only while the
+fast engine's worst-case score deviation stays far below it. This module
 constructs the conditions the bench ladder never hits:
 
 * **deep buckets**: every site within Hamming distance <= 4 of one
   query, so all of them share that query's slice buckets and the
   accumulation chain per (query, bucket) is maximally long;
-* **bf16-split stress**: mismatches planted at the strongest-penalty
-  MIT positions (largest |log2(1-w)| -> the dense engine's split-bf16
-  log-matmul sees its coarsest quantization) and at zero/weak CFD
-  penalty positions (products near the f32 rounding floor);
+* **log-sum stress**: mismatches planted at the strongest-penalty MIT
+  positions (largest |log2(1-w)|) mixed with weak ones, and at zero/weak
+  CFD penalty positions (products near the f32 rounding floor);
 * **heavy occurrences**: hit contributions scaled x1000, pushing the
   sums into the score region of maximum d(score)/d(sum) sensitivity.
 
-The assertions are 10x stricter than each engine's advertised band
-(``score_band`` — dense 1.0, compact 0.05): a kernel change that moves
-the engine's error past band/10 fails here long before the hybrid's
-verdict guarantee is at risk.
+The assertion is 10x stricter than the compact engine's advertised band
+(``score_band`` 0.05): a kernel change that moves the engine's error
+past band/10 fails here long before the hybrid's verdict guarantee is at
+risk.
 """
 
 import numpy as np
 import pytest
 
-from crackling_tpu.index import build_index
-from crackling_tpu.ops.oracle import score_bruteforce
+from crackling_jax.index import build_index
+from crackling_jax.ops.oracle import score_bruteforce
 
-DENSE_MARGIN = 0.1      # score units; dense score_band is 1.0
 COMPACT_MARGIN = 0.005  # score units; compact score_band is 0.05
 
 
@@ -49,7 +47,7 @@ def adversarial():
     q = np.uint64(rng.integers(0, 1 << 40))
     # MIT weight extremes (isslCreateIndex.cpp:96): positions with the
     # largest penalties dominate the log-sum; mixing them with near-zero
-    # ones maximizes the spread the bf16 split must represent
+    # ones maximizes the spread the f32 log-sum must represent
     strong = [5, 6, 18, 19, 16]          # M[] large
     weak = [0, 1, 2, 3, 4]               # M[] small / zero-ish
     sites = [q]                           # self-hit
@@ -78,21 +76,8 @@ def adversarial():
     return index, queries, mit_f64, cfd_f64
 
 
-def test_dense_deviation_within_band_margin(adversarial):
-    from crackling_tpu.ops.issl_dense import DenseIsslScorer
-
-    index, queries, mit_f64, cfd_f64 = adversarial
-    sc = DenseIsslScorer(index, max_dist=4, query_page=64, chunk=1024,
-                         interpret=True)
-    mit, cfd = sc.score(queries)
-    dev = max(np.abs(mit - mit_f64).max(), np.abs(cfd - cfd_f64).max())
-    assert dev < DENSE_MARGIN, (
-        f"dense engine deviates {dev:.4f} score units on the adversarial "
-        f"index — approaching its score_band (1.0)")
-
-
 def test_compact_deviation_within_band_margin(adversarial):
-    from crackling_tpu.ops.issl_compact import CompactIsslScorer
+    from crackling_jax.ops.issl_compact import CompactIsslScorer
 
     index, queries, mit_f64, cfd_f64 = adversarial
     sc = CompactIsslScorer(index, max_dist=4, query_page=64, chunk=1024,

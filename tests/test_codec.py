@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from crackling_tpu import codec
+from crackling_jax import codec
 
 
 def test_pack_lofirst_matches_reference_bit_layout():

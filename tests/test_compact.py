@@ -1,19 +1,19 @@
 """Compact two-phase engine (ops/issl_compact.py) vs the brute-force oracle.
 
-Interpret-mode pallas runs the (5, 256) grid as Python, so a single
+The finder kernel runs in the Pallas interpreter here, so a single
 module-scoped dataset is shared and each scorer construction is reused
-across assertions. Coverage: score accuracy (f32 per-hit arithmetic is
-much tighter than the dense engine's bf16-split tier), paging, every
-decode stage (single-hit slots, single-hit chunk cells, multi-hit chunk
-rescan), compaction-cap overflow page splitting, and hybrid wrapping.
+across assertions. Coverage: score accuracy (plain f32 per-hit
+arithmetic), paging, every decode stage (single-hit slots, single-hit
+chunk cells, multi-hit chunk rescan), compaction-cap overflow page
+splitting, and hybrid wrapping.
 """
 
 import numpy as np
 import pytest
 
-from crackling_tpu.index import build_index
-from crackling_tpu.ops.issl_compact import CompactIsslScorer
-from crackling_tpu.ops.oracle import score_bruteforce
+from crackling_jax.index import build_index
+from crackling_jax.ops.issl_compact import CompactIsslScorer
+from crackling_jax.ops.oracle import score_bruteforce
 
 
 @pytest.fixture(scope="module")
@@ -144,9 +144,9 @@ def test_hybrid_with_compact_verdicts(data):
     """HybridIsslScorer accepts the compact engine as its fast path; the
     combined scorer's verdicts match the bit-exact oracle for the two
     methods with distinct exit semantics (and / avg)."""
-    from crackling_tpu.ops.issl_dense import HybridIsslScorer
-    from crackling_tpu.ops.issl_jax import verdicts
-    from crackling_tpu.ops.oracle import score_exact
+    from crackling_jax.ops.hybrid import HybridIsslScorer
+    from crackling_jax.ops.issl_jax import verdicts
+    from crackling_jax.ops.oracle import score_exact
 
     index, queries = data
     for method, thr in (("and", 75.0), ("avg", 90.0)):
@@ -154,7 +154,7 @@ def test_hybrid_with_compact_verdicts(data):
         fast = CompactIsslScorer(index, max_dist=4, query_page=64,
                                  chunk=1024, interpret=True)
         hyb = HybridIsslScorer(index, max_dist=4, method=method,
-                               threshold=thr, dense=fast)
+                               threshold=thr, fast=fast)
         mit, cfd = hyb.score(queries)
         np.testing.assert_array_equal(
             verdicts(mit, cfd, thr, method),
@@ -234,9 +234,9 @@ def test_superchunk_overflow_splits_pages(deep_data):
 
 def test_quant_cap_grain():
     """Caps quantize to 4096 multiples at 1.25x headroom — every decode
-    gather runs at cap size, so the old power-of-two-at-1.5x rule's up-to
-    2x waste was measured throughput (bench 293K -> 421K guides/s)."""
-    from crackling_tpu.ops.issl_compact import _quant_cap
+    gather runs at cap size, so a power-of-two rule's up-to-2x waste is
+    work done for nothing."""
+    from crackling_jax.ops.issl_compact import _quant_cap
 
     assert _quant_cap(0) == 4096
     assert _quant_cap(100) == 4096
@@ -246,33 +246,3 @@ def test_quant_cap_grain():
     for pop in (1, 4096, 10000, 99999):
         cap = _quant_cap(pop)
         assert cap % 4096 == 0 and cap > 1.25 * pop
-
-
-def test_onehot_finder_vs_bruteforce(data):
-    """The one-hot-plane finder kernel must produce the same sums as the
-    packed-unpack finder (they share the moment tail; only the mask
-    source differs) and match brute force."""
-    index, queries = data
-    mit_b, cfd_b = score_bruteforce(queries, index.site_sigs,
-                                    index.occurrences, 4)
-    sc = CompactIsslScorer(index, max_dist=4, query_page=64, chunk=1024,
-                           onehot=True, interpret=True)
-    assert sc.onehot and sc.planes is not None
-    assert sc.planes.dtype.name == "int8"
-    mit, cfd = sc.score_sums(queries)
-    np.testing.assert_allclose(mit, mit_b, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(cfd, cfd_b, rtol=1e-5, atol=1e-5)
-
-
-def test_onehot_finder_superchunk(deep_data):
-    """One-hot finder through the superchunk tree (deep bucket)."""
-    index, queries = deep_data
-    mit_b, cfd_b = score_bruteforce(queries, index.site_sigs,
-                                    index.occurrences, 4)
-    sc = CompactIsslScorer(index, max_dist=4, query_page=32, chunk=1024,
-                           superchunk=2, onehot=True, interpret=True)
-    mit, cfd = sc.score_sums(queries)
-    np.testing.assert_allclose(mit, mit_b, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(cfd, cfd_b, rtol=1e-5, atol=1e-5)
-    pops = np.array(sc.page_stats).max(axis=0)
-    assert pops[1] > 0 and pops[4] > 0   # tree stages really fired

@@ -80,7 +80,7 @@ page-length = 5000000
 low_energy_threshold = -30
 high_energy_threshold = -18
 
-[tpu]
+[accelerator]
 engine = auto
 rnafold-backend = native
 """
@@ -102,14 +102,14 @@ def parity_world(tmp_path_factory):
 
     env = dict(os.environ)
     run = lambda *a: subprocess.run(
-        [sys.executable, "-m", "crackling_tpu.utils.run_cli", *a],
+        [sys.executable, "-m", "crackling_jax.utils.run_cli", *a],
         check=True, capture_output=True, cwd=REPO, env=env)
     sites = td / "sites.txt"
     run("extractOfftargets", str(sites), str(genome))
     issl = td / "g.issl"
     run("createIsslIndex", str(sites), "20", "8", str(issl))
 
-    from crackling_tpu.utils.shims import write_shim_scripts
+    from crackling_jax.utils.shims import write_shim_scripts
 
     shims = write_shim_scripts(str(td))
     # ISSL scorer shim: argv/stdout-compatible scoreOfftargets CLI
@@ -118,7 +118,7 @@ def parity_world(tmp_path_factory):
         f"#!{sys.executable}\n"
         "import sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
-        "from crackling_tpu.utils.cli import main_score_offtargets\n"
+        "from crackling_jax.utils.cli import main_score_offtargets\n"
         "sys.exit(main_score_offtargets(sys.argv[1:]) or 0)\n")
     issl_shim.chmod(0o755)
 
@@ -159,7 +159,7 @@ def test_csv_parity_vs_reference(parity_world):
     env2["CRACKLING_PLATFORM"] = "cpu"
     env2["PYTHONPATH"] = str(REPO)
     r2 = subprocess.run(
-        [sys.executable, "-m", "crackling_tpu.utils.run_cli", "Crackling",
+        [sys.executable, "-m", "crackling_jax.utils.run_cli", "Crackling",
          "-c", str(our_cfg)],
         capture_output=True, text=True, cwd=td, env=env2, timeout=900)
     assert r2.returncode == 0, r2.stdout[-3000:] + r2.stderr[-3000:]

@@ -17,9 +17,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from crackling_tpu.index import build_index
-from crackling_tpu.index.io import write_reference_issl
-from crackling_tpu.ops.oracle import score_bruteforce
+from crackling_jax.index import build_index
+from crackling_jax.index.io import write_reference_issl
+from crackling_jax.ops.oracle import score_bruteforce
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -28,7 +28,7 @@ WORKER = textwrap.dedent("""
     import numpy as np
     pid = int(sys.argv[1]); port = sys.argv[2]; tmp = sys.argv[3]
     sys.path.insert(0, sys.argv[4])
-    from crackling_tpu.parallel.distributed import (
+    from crackling_jax.parallel.distributed import (
         initialize, host_mesh, multihost_scorer)
     initialize(f"localhost:{port}", 2, pid, cpu_devices=4)
     import jax
@@ -44,9 +44,10 @@ WORKER = textwrap.dedent("""
     np.testing.assert_allclose(cfd, exp["cfd"], rtol=2e-6, atol=1e-6)
     # the fast path over the same mesh: compact program per shard,
     # DCN-crossing psum + process_allgather'd moment depth
-    from crackling_tpu.parallel.distributed import multihost_fast_scorer
+    from crackling_jax.parallel.distributed import multihost_fast_scorer
     fast = multihost_fast_scorer(os.path.join(tmp, "g.issl"), mesh,
-                                 max_dist=4, chunk=1024, query_page=128)
+                                 max_dist=4, chunk=1024, query_page=128,
+                                 interpret=True)
     fm, fc = fast.score_sums(exp["queries"])
     np.testing.assert_allclose(fm, exp["mit"], rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(fc, exp["cfd"], rtol=1e-5, atol=1e-5)
@@ -78,7 +79,7 @@ def world(tmp_path_factory):
 
 
 def test_load_index_range_matches_full(world):
-    from crackling_tpu.parallel.distributed import load_index_range
+    from crackling_jax.parallel.distributed import load_index_range
 
     td, index = world
     n = index.num_sites

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from crackling_tpu.codec import at_percentage, strings_to_sigs
-from crackling_tpu.ops import efficiency as eff
+from crackling_jax.codec import at_percentage, strings_to_sigs
+from crackling_jax.ops import efficiency as eff
 
 
 @pytest.fixture()

@@ -1,27 +1,17 @@
-"""engine = auto picks the hybrid-compact path at every depth (round 5).
+"""engine = auto picks the hybrid-compact path at every depth wherever
+the compact kernel compiles (ops/backend.py), the XLA engine elsewhere.
 
-Round 3 added a bucket-depth crossover (compact shallow, dense deep)
-because the pre-pair-moment compact engine collapsed at mammal depth.
-Round 4 redesigned the compact decode (superchunk tree + pair moments);
-round 5 re-measured the crossover for the path auto actually builds —
-the HYBRID (fast engine + bit-exact near-threshold re-score) — and
-found hybrid-compact dominates at both ends of the ladder
-(scripts/scale_rung_results.jsonl: 8,215 vs 806 guides/s at the mouse
-rung, ~295K vs ~221K at the bench point), because compact's ~1e-4-exact
-scores shrink the re-score band 20x (score_band 0.05 vs 1.0). The
-depth split is gone; what remains depth-dependent is the
-construction-time fallback to dense past the compact decoder's 2^22
-rank-exactness bound, exercised in the pipeline's engine selection.
-
-The reference has a single scan loop at every depth
-(isslScoreOfftargets.cpp:344-461); engine choice here is a TPU-side
-performance contract only — every auto path is verdict-exact through
-the hybrid wrapper.
+What remains depth-dependent is the construction-time fallback to the
+XLA engine past the compact decoder's 2^22 rank-exactness bound,
+exercised in the pipeline's engine selection. The reference has a single
+scan loop at every depth (isslScoreOfftargets.cpp:344-461); engine choice
+here is a performance contract only — every auto path is verdict-exact
+through the hybrid wrapper.
 """
 
 from types import SimpleNamespace
 
-from crackling_tpu.pipeline.run import select_auto_engine
+from crackling_jax.pipeline.run import select_auto_engine
 
 
 def fake_index(num_sites, seq_length=20, slice_width=8):
@@ -32,27 +22,28 @@ def fake_index(num_sites, seq_length=20, slice_width=8):
 
 def test_shallow_index_selects_compact():
     # 27 Mbp bench point: ~5.06M distinct sites -> ~20K average depth
-    assert select_auto_engine(fake_index(5_060_000), "tpu") == "compact"
+    assert select_auto_engine(fake_index(5_060_000), "gpu") == "compact"
 
 
 def test_deep_index_selects_compact():
-    # mouse rung: 111.3M distinct sites -> ~435K average depth. The
-    # hybrid-compact path measured 8,215 guides/s here vs hybrid-dense's
-    # 806 (scripts/scale_rung_results.jsonl) — compact at depth too.
-    assert select_auto_engine(fake_index(111_300_000), "tpu") == "compact"
+    # mouse rung: 111.3M distinct sites -> ~435K average depth
+    assert select_auto_engine(fake_index(111_300_000), "gpu") == "compact"
 
 
 def test_band_tracks_fast_engine():
     """The hybrid's re-score band must come from the fast engine's
-    advertised accuracy — the mechanism behind the depth decision."""
-    from crackling_tpu.ops.issl_compact import CompactIsslScorer
-    from crackling_tpu.ops.issl_dense import DenseIsslScorer
+    advertised accuracy."""
+    from crackling_jax.ops.hybrid import HybridIsslScorer
+    from crackling_jax.ops.issl_compact import CompactIsslScorer
+    from crackling_jax.ops.issl_jax import IsslScorer
 
     assert CompactIsslScorer.score_band == 0.05
-    assert DenseIsslScorer.score_band == 1.0
+    assert IsslScorer.score_band == 0.05
+    fast = SimpleNamespace(score_band=0.5)
+    assert HybridIsslScorer(fake_index(10), fast=fast).band == 0.5
 
 
-def test_non_tpu_or_non_default_shape_selects_xla():
+def test_non_gpu_or_non_default_shape_selects_xla():
     assert select_auto_engine(fake_index(1_000), "cpu") == "xla"
-    assert select_auto_engine(fake_index(1_000, seq_length=21), "tpu") == "xla"
-    assert select_auto_engine(fake_index(1_000, slice_width=4), "tpu") == "xla"
+    assert select_auto_engine(fake_index(1_000, seq_length=21), "gpu") == "xla"
+    assert select_auto_engine(fake_index(1_000, slice_width=4), "gpu") == "xla"

@@ -9,8 +9,8 @@ import re
 
 import numpy as np
 
-from crackling_tpu.codec import rc, strings_to_sigs
-from crackling_tpu.index.extract import (
+from crackling_jax.codec import rc, strings_to_sigs
+from crackling_jax.index.extract import (
     encode_seq,
     extract_offtarget_sites,
     find_candidate_guides,

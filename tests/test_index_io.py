@@ -5,10 +5,10 @@ import subprocess
 import numpy as np
 import pytest
 
-from crackling_tpu.codec import sigs_to_strings
-from crackling_tpu.index import build_index, read_reference_issl, write_reference_issl
-from crackling_tpu.index.io import load_native, save_native
-from crackling_tpu.ops.tables import precalculated_mit_scores
+from crackling_jax.codec import sigs_to_strings
+from crackling_jax.index import build_index, read_reference_issl, write_reference_issl
+from crackling_jax.index.io import load_native, save_native
+from crackling_jax.ops.tables import precalculated_mit_scores
 
 
 @pytest.fixture()
@@ -79,7 +79,7 @@ def test_native_dir_roundtrip(tmp_path, site_sigs):
     assert (np.asarray(loaded.order) == index.order).all()
     assert (np.asarray(loaded.bucket_offsets) == index.bucket_offsets).all()
 
-    from crackling_tpu.ops.issl_jax import IsslScorer
+    from crackling_jax.ops.issl_jax import IsslScorer
 
     q = index.site_sigs[:32]
     m1, c1 = IsslScorer(index, max_dist=4, method="and",

@@ -13,10 +13,10 @@ import shutil
 import numpy as np
 import pytest
 
-from crackling_tpu.ops import rna_params as rp
-from crackling_tpu.ops.mfe import encode_rna, fold_sequences
+from crackling_jax.ops import rna_params as rp
+from crackling_jax.ops.mfe import encode_rna, fold_sequences
 
-native = pytest.importorskip("crackling_tpu.native")
+native = pytest.importorskip("crackling_jax.native")
 
 
 def _rand_seqs(n, count, seed):
@@ -226,7 +226,7 @@ def test_structures_well_formed():
 def test_real_constructs_fold():
     """Guide+scaffold constructs (the pipeline's actual inputs) fold to
     plausibly scaffold-dominated energies with hairpin structure."""
-    from crackling_tpu.constants import SCAFFOLD_RNA
+    from crackling_jax.constants import SCAFFOLD_RNA
 
     rng = np.random.default_rng(5)
     spacers = ["".join(rng.choice(list("ACGU"), 19)) for _ in range(16)]
@@ -244,8 +244,8 @@ def test_real_constructs_fold():
 def test_rnafold_verdict_agreement(tmp_path):
     """Folds a few hundred real constructs with RNAfold and the native
     engine and records the mm10db verdict agreement rate (>= 99% gate)."""
-    from crackling_tpu.constants import SCAFFOLD_RNA
-    from crackling_tpu.pipeline.secondary_structure import (
+    from crackling_jax.constants import SCAFFOLD_RNA
+    from crackling_jax.pipeline.secondary_structure import (
         SecondaryStructureGate)
 
     rng = np.random.default_rng(99)

@@ -10,9 +10,9 @@ product op order, and the per-method early exit.
 import numpy as np
 import pytest
 
-from crackling_tpu import native
-from crackling_tpu.index import build_index
-from crackling_tpu.ops.oracle import score_exact
+from crackling_jax import native
+from crackling_jax.index import build_index
+from crackling_jax.ops.oracle import score_exact
 
 pytestmark = pytest.mark.skipif(native.get_lib() is None,
                                 reason="native library unavailable")
@@ -55,16 +55,11 @@ def test_native_exact_equals_oracle(data, method, threshold):
     np.testing.assert_array_equal(got[1], cfd_e)
 
 
-def test_hybrid_prefers_native_exact(data, monkeypatch):
-    """With the MXU engine infeasible, the hybrid's re-score runs the
-    native scanner and still reproduces the exact emulation bit-for-bit."""
-    from crackling_tpu.ops import issl_mxu
-    from crackling_tpu.ops.issl_dense import HybridIsslScorer
+def test_hybrid_prefers_native_exact(data):
+    """Where the native library builds, the hybrid's re-score runs the
+    native scanner and reproduces the exact emulation bit-for-bit."""
+    from crackling_jax.ops.hybrid import HybridIsslScorer
 
-    def refuse(self, *a, **k):
-        raise ValueError("one-hot planes need too much HBM (test)")
-
-    monkeypatch.setattr(issl_mxu.MxuIsslScorer, "__init__", refuse)
     index, queries = data
     thr = 90.0
     mit_e, cfd_e = score_exact(index, queries, 4, thr, "avg")
@@ -72,6 +67,6 @@ def test_hybrid_prefers_native_exact(data, monkeypatch):
                           band=np.inf, query_page=64, chunk=1024,
                           interpret=True)
     mit, cfd = hy.score(queries)
-    assert not hy._exact_x64          # native path, not the XLA fallback
+    assert hy._exact.path == "native"   # not the XLA f64 variant
     np.testing.assert_array_equal(mit, mit_e)
     np.testing.assert_array_equal(cfd, cfd_e)

@@ -8,7 +8,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from crackling_tpu.constants import GUIDE_COLUMNS
+from crackling_jax.constants import GUIDE_COLUMNS
 
 
 @pytest.fixture(scope="module")
@@ -33,7 +33,7 @@ def mini_world(tmp_path_factory):
 
     sites = td / "offtargetSites.txt"
     out = subprocess.run(
-        [sys.executable, "-m", "crackling_tpu.utils.run_cli", "extractOfftargets",
+        [sys.executable, "-m", "crackling_jax.utils.run_cli", "extractOfftargets",
          str(sites), str(genome)],
         capture_output=True, text=True,
     )
@@ -101,8 +101,8 @@ def test_extract_offtargets_cli_sorted(mini_world):
 
 
 def test_full_pipeline(mini_world):
-    from crackling_tpu.pipeline.config import ConfigManager
-    from crackling_tpu.pipeline.run import Crackling
+    from crackling_jax.pipeline.config import ConfigManager
+    from crackling_jax.pipeline.run import Crackling
 
     cm = ConfigManager(str(mini_world["config"]), lambda m: None)
     assert cm.isConfigured()
@@ -144,7 +144,7 @@ def test_full_pipeline(mini_world):
         # verify the located site actually matches the guide's 20-mer
         chrom = mini_world["chrom1" if r[col["bowtieChr"]] == "chr1" else "chrom2"]
         window = chrom[start - 1:start + 22]
-        from crackling_tpu.codec import rc
+        from crackling_jax.codec import rc
 
         # the located 23-mer window must contain the guide on one strand:
         # forward (guide spelled out) or reverse (window is rc of the guide)
@@ -158,7 +158,7 @@ def test_full_pipeline(mini_world):
 
 
 def test_pipeline_output_blocked_without_resume(mini_world):
-    from crackling_tpu.pipeline.config import ConfigManager
+    from crackling_jax.pipeline.config import ConfigManager
 
     msgs = []
     cm = ConfigManager(str(mini_world["config"]), msgs.append)
@@ -168,7 +168,7 @@ def test_pipeline_output_blocked_without_resume(mini_world):
 
 
 def test_resume_manifest(tmp_path):
-    from crackling_tpu.pipeline.metrics import ResumeManifest, Metrics
+    from crackling_jax.pipeline.metrics import ResumeManifest, Metrics
 
     out = tmp_path / "g.csv"
     out.write_text("x")
@@ -201,9 +201,9 @@ def test_pipeline_resume_skips_completed(mini_world, tmp_path):
     """A crashed run resumes at the right batch and completes the output."""
     import shutil
 
-    from crackling_tpu.pipeline.config import ConfigManager
-    from crackling_tpu.pipeline.metrics import ResumeManifest, config_fingerprint
-    from crackling_tpu.pipeline.run import Crackling
+    from crackling_jax.pipeline.config import ConfigManager
+    from crackling_jax.pipeline.metrics import ResumeManifest, config_fingerprint
+    from crackling_jax.pipeline.run import Crackling
 
     outdir = tmp_path / "resume-out"
     outdir.mkdir()
@@ -231,7 +231,7 @@ def test_pipeline_resume_skips_completed(mini_world, tmp_path):
 def test_v1_0_0_config_migration(mini_world, tmp_path, monkeypatch):
     """A v1.0.0 Python-dict config (reference ConfigManager.py:58-134)
     loads, migrates to INI, and writes the <path>.ini copy."""
-    from crackling_tpu.pipeline.config import ConfigManager
+    from crackling_jax.pipeline.config import ConfigManager
 
     outdir = tmp_path / "o"
     outdir.mkdir()
@@ -270,8 +270,8 @@ def test_multibatch_spill_matches_single_batch(mini_world, tmp_path):
     """batch-size smaller than the candidate count spills the record
     arrays to disk (memmap-backed batches) and produces the same CSV as a
     single-batch run; the spill dir is cleaned up afterwards."""
-    from crackling_tpu.pipeline.config import ConfigManager
-    from crackling_tpu.pipeline.run import Crackling
+    from crackling_jax.pipeline.config import ConfigManager
+    from crackling_jax.pipeline.run import Crackling
 
     outdir = tmp_path / "mb-out"
     outdir.mkdir()
@@ -295,15 +295,15 @@ def test_w4_index_through_pipeline(mini_world, tmp_path):
     engine, and the emitted scores match the bit-exact oracle.
 
     The reference binary accepts any seqLength <= 32 and even slice
-    width (isslCreateIndex.cpp:135-145); the fast compact/dense/MXU
-    engines here bake in l=20/w=8, so ``engine = auto`` must route other
+    width (isslCreateIndex.cpp:135-145); the fast compact engine here
+    bakes in l=20/w=8, so ``engine = auto`` must route other
     operating points to ops/issl_jax.IsslScorer (README "Engine
     operating points")."""
-    from crackling_tpu.codec import strings_to_sigs
-    from crackling_tpu.index import build_index, save_native
-    from crackling_tpu.ops.oracle import score_exact
-    from crackling_tpu.pipeline.config import ConfigManager
-    from crackling_tpu.pipeline.run import Crackling, select_auto_engine
+    from crackling_jax.codec import strings_to_sigs
+    from crackling_jax.index import build_index, save_native
+    from crackling_jax.ops.oracle import score_exact
+    from crackling_jax.pipeline.config import ConfigManager
+    from crackling_jax.pipeline.run import Crackling, select_auto_engine
 
     site_strs = mini_world["sites"].read_text().split()
     sites = strings_to_sigs(site_strs, 20)
@@ -311,8 +311,8 @@ def test_w4_index_through_pipeline(mini_world, tmp_path):
     assert index4.slice_count == 10
     npz = tmp_path / "w4.index.npz"
     save_native(index4, str(npz))
-    # auto never offers a fast engine at w=4, even on TPU
-    assert select_auto_engine(index4, "tpu") == "xla"
+    # auto never offers a fast engine at w=4, even on a GPU
+    assert select_auto_engine(index4, "gpu") == "xla"
 
     outdir = tmp_path / "w4-out"
     outdir.mkdir()

@@ -1,8 +1,9 @@
-"""Multihost pipeline wiring: 2-process end-to-end run (VERDICT r3 item 5).
+"""Multihost pipeline wiring: 2-process end-to-end run.
 
 Two real processes each run the FULL pipeline (extract -> efficiency ->
 positioning -> sharded ISSL scoring) from one shared config, connected
-through ``[tpu] coordinator-address / process-count`` -> jax.distributed.
+through ``[accelerator] coordinator-address / process-count`` ->
+jax.distributed.
 Each process loads only its own site ranges from the .issl file; the
 per-query partial sums psum across the ('host','q','shard') mesh, so
 both processes must emit identical CSVs — compared here against each
@@ -22,7 +23,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from crackling_tpu.constants import GUIDE_COLUMNS
+from crackling_jax.constants import GUIDE_COLUMNS
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -74,16 +75,16 @@ page-length = 5000000
 low_energy_threshold = -30
 high_energy_threshold = -18
 
-[tpu]
+[accelerator]
 engine = sharded
-{tpu_extra}
+{extra}
 """
 
 WORKER = textwrap.dedent("""
     import sys
     sys.path.insert(0, sys.argv[2])
-    from crackling_tpu.pipeline.config import ConfigManager
-    from crackling_tpu.pipeline.run import Crackling
+    from crackling_jax.pipeline.config import ConfigManager
+    from crackling_jax.pipeline.run import Crackling
     cm = ConfigManager(sys.argv[1], print)
     assert cm.isConfigured()
     Crackling(cm)
@@ -105,14 +106,14 @@ def world(tmp_path_factory):
 
     sites_txt = td / "sites.txt"
     out = subprocess.run(
-        [sys.executable, "-m", "crackling_tpu.utils.run_cli",
+        [sys.executable, "-m", "crackling_jax.utils.run_cli",
          "extractOfftargets", str(sites_txt), str(genome)],
         capture_output=True, text=True)
     assert out.returncode == 0, out.stderr
 
     # multihost needs the reference-format .issl (range loading)
-    from crackling_tpu.codec import strings_to_sigs
-    from crackling_tpu.index import build_index, write_reference_issl
+    from crackling_jax.codec import strings_to_sigs
+    from crackling_jax.index import build_index, write_reference_issl
 
     sigs = strings_to_sigs(sites_txt.read_text().split(), 20)
     index = build_index(sigs)
@@ -149,7 +150,7 @@ def test_two_process_pipeline_matches_single(world, tmp_path):
     cfg_single = tmp_path / "single.ini"
     cfg_single.write_text(CONFIG.format(
         exons=world["exons"], issl=world["issl"], genome=world["genome"],
-        outdir=out_single, tpu_extra="cpu-devices = 8"))
+        outdir=out_single, extra="cpu-devices = 8"))
     p = run_worker(cfg_single)
     out, _ = p.communicate(timeout=900)
     assert p.returncode == 0 and "PIPE_OK" in out, out
@@ -164,7 +165,7 @@ def test_two_process_pipeline_matches_single(world, tmp_path):
         cfg.write_text(CONFIG.format(
             exons=world["exons"], issl=world["issl"],
             genome=world["genome"], outdir=outdir,
-            tpu_extra=(f"coordinator-address = localhost:{port}\n"
+            extra=(f"coordinator-address = localhost:{port}\n"
                        "process-count = 2\n"
                        f"process-id = {pid}\n"
                        "cpu-devices = 4\n"

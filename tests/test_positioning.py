@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from crackling_tpu.codec import rc, strings_to_sigs
-from crackling_tpu.pipeline.positioning import (GenomeIndex, best_alignment,
+from crackling_jax.codec import rc, strings_to_sigs
+from crackling_jax.pipeline.positioning import (GenomeIndex, best_alignment,
                                                 position_guides, variant_sigs)
 
 PAMS = ["AGG", "CGG", "GGG", "TGG", "AAG", "CAG", "GAG", "TAG"]
@@ -162,7 +162,7 @@ def test_window_index_memmap_matches_inram(world):
 def test_variant_sigs_layout():
     sigs = strings_to_sigs(["A" * 20 + "GGG"], 23)
     v = variant_sigs(sigs)
-    from crackling_tpu.codec import sigs_to_strings
+    from crackling_jax.codec import sigs_to_strings
 
     got = sigs_to_strings(v.reshape(-1), 23)
     assert got == ["A" * 20 + p for p in PAMS]

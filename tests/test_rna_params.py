@@ -14,12 +14,12 @@ with values that differ from the generic decomposition.
 import numpy as np
 import pytest
 
-from crackling_tpu.ops import rna_params as rp
-from crackling_tpu.ops.mfe import encode_rna, fold_sequences
+from crackling_jax.ops import rna_params as rp
+from crackling_jax.ops.mfe import encode_rna, fold_sequences
 
 from test_mfe import _dotbracket_pairs, _enumerate_structures, _structure_energy
 
-native = pytest.importorskip("crackling_tpu.native")
+native = pytest.importorskip("crackling_jax.native")
 
 
 def _vals(n, seed, lo=-300, hi=200):

@@ -1,4 +1,4 @@
-"""Gate on the reconstructed-RNA-table sensitivity (VERDICT r3 item 7).
+"""Gate on the reconstructed-RNA-table sensitivity.
 
 The default Turner-2004 tables carry RECONSTRUCTED entries
 (ops/rna_params.py provenance notes); the measured exposure is that
@@ -20,9 +20,9 @@ def test_reconstruction_sensitivity_bounded():
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
     from rna_sensitivity import make_targets, run_study
 
-    from crackling_tpu.pipeline.secondary_structure import _native_available
+    from crackling_jax.pipeline.secondary_structure import _native_available
 
-    backend = "native" if _native_available() else "tpu"
+    backend = "native" if _native_available() else "jax"
     targets = make_targets(48)
     results = run_study(targets, deltas=[0.25], draws=3, backend=backend)
     rec = results[0]

@@ -5,10 +5,10 @@ import subprocess
 import numpy as np
 import pytest
 
-from crackling_tpu.codec import sigs_to_strings, strings_to_sigs
-from crackling_tpu.index import build_index, write_reference_issl
-from crackling_tpu.ops.issl_jax import IsslScorer, verdicts
-from crackling_tpu.ops.oracle import score_bruteforce, score_exact
+from crackling_jax.codec import sigs_to_strings, strings_to_sigs
+from crackling_jax.index import build_index, write_reference_issl
+from crackling_jax.ops.issl_jax import IsslScorer, verdicts
+from crackling_jax.ops.oracle import score_bruteforce, score_exact
 
 NO_EXIT_THRESHOLD = 1e-9  # makes maximum_sum astronomically large
 

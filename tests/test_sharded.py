@@ -4,9 +4,9 @@ import jax
 import numpy as np
 import pytest
 
-from crackling_tpu.index import build_index
-from crackling_tpu.ops.oracle import score_bruteforce
-from crackling_tpu.parallel.sharded import ShardedIsslScorer, make_mesh, shard_index
+from crackling_jax.index import build_index
+from crackling_jax.ops.oracle import score_bruteforce
+from crackling_jax.parallel.sharded import ShardedIsslScorer, make_mesh, shard_index
 
 
 @pytest.fixture(scope="module")
@@ -52,46 +52,8 @@ def test_sharded_matches_bruteforce(data, shape):
     np.testing.assert_allclose(cfd, cfd_b, rtol=2e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
-def test_sharded_dense_matches_bruteforce(data, shape):
-    """The dense (fast-path) engine under shard_map + psum agrees with
-    the brute-force oracle — VERDICT r2 item 1: the multi-device path
-    must run a fast engine, not only the XLA scan."""
-    from crackling_tpu.parallel.sharded import ShardedDenseIsslScorer
-
-    index, queries = data
-    n_q, n_shards = shape
-    mesh = make_mesh(n_shards=n_shards, n_q=n_q)
-    scorer = ShardedDenseIsslScorer(index, mesh, max_dist=4,
-                                    query_page=32, chunk=1024)
-    mit, cfd = scorer.score_sums(queries)
-    mit_b, cfd_b = score_bruteforce(queries, index.site_sigs,
-                                    index.occurrences, 4)
-    # f32/bf16-split arithmetic: same tier as the single-chip dense engine
-    np.testing.assert_allclose(mit, mit_b, rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(cfd, cfd_b, rtol=2e-4, atol=2e-4)
-
-
-def test_sharded_dense_matches_single_device_dense(data):
-    """Site-range sharding + psum reproduces the single-device dense
-    engine bit-for-bit in f32?  Not guaranteed (different accumulation
-    grouping), so assert score agreement at the engine's parity tier."""
-    from crackling_tpu.ops.issl_dense import DenseIsslScorer
-    from crackling_tpu.parallel.sharded import ShardedDenseIsslScorer
-
-    index, queries = data
-    mesh = make_mesh(n_shards=8, n_q=1)
-    sharded = ShardedDenseIsslScorer(index, mesh, max_dist=4,
-                                     query_page=64, chunk=1024)
-    single = DenseIsslScorer(index, max_dist=4, query_page=64, chunk=1024)
-    m1, c1 = sharded.score(queries)
-    m2, c2 = single.score(queries)
-    np.testing.assert_allclose(m1, m2, rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(c1, c2, rtol=2e-5, atol=2e-5)
-
-
 def test_sharded_matches_single_device(data):
-    from crackling_tpu.ops.issl_jax import IsslScorer
+    from crackling_jax.ops.issl_jax import IsslScorer
 
     index, queries = data
     mesh = make_mesh(n_shards=8, n_q=1)
@@ -109,13 +71,14 @@ def test_sharded_compact_matches_bruteforce(data, shape):
     """The compact (fastest-path) engine under shard_map + psum agrees
     with the brute-force oracle; the pmax-merged cap header reports the
     worst device and small caps still converge via page splits."""
-    from crackling_tpu.parallel.sharded import ShardedCompactIsslScorer
+    from crackling_jax.parallel.sharded import ShardedCompactIsslScorer
 
     index, queries = data
     n_q, n_shards = shape
     mesh = make_mesh(n_shards=n_shards, n_q=n_q)
     scorer = ShardedCompactIsslScorer(index, mesh, max_dist=4,
-                                      query_page=32, chunk=1024)
+                                      query_page=32, chunk=1024,
+                                      interpret=True)
     mit, cfd = scorer.score_sums(queries)
     mit_b, cfd_b = score_bruteforce(queries, index.site_sigs,
                                     index.occurrences, 4)
@@ -126,14 +89,16 @@ def test_sharded_compact_matches_bruteforce(data, shape):
 
 
 def test_sharded_compact_matches_single_device(data):
-    from crackling_tpu.ops.issl_compact import CompactIsslScorer
-    from crackling_tpu.parallel.sharded import ShardedCompactIsslScorer
+    from crackling_jax.ops.issl_compact import CompactIsslScorer
+    from crackling_jax.parallel.sharded import ShardedCompactIsslScorer
 
     index, queries = data
     mesh = make_mesh(n_shards=8, n_q=1)
     sharded = ShardedCompactIsslScorer(index, mesh, max_dist=4,
-                                       query_page=64, chunk=1024)
-    single = CompactIsslScorer(index, max_dist=4, query_page=64, chunk=1024)
+                                       query_page=64, chunk=1024,
+                                       interpret=True)
+    single = CompactIsslScorer(index, max_dist=4, query_page=64, chunk=1024,
+                               interpret=True)
     m1, c1 = sharded.score(queries)
     m2, c2 = single.score(queries)
     np.testing.assert_allclose(m1, m2, rtol=2e-5, atol=2e-5)

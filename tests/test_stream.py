@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from crackling_tpu.index.build import build_index, _lofirst_to_lex
-from crackling_tpu.index.extract import extract_offtarget_sites_seq
-from crackling_tpu.index.stream import (SpillSorter, build_index_streamed,
+from crackling_jax.index.build import build_index, _lofirst_to_lex
+from crackling_jax.index.extract import extract_offtarget_sites_seq
+from crackling_jax.index.stream import (SpillSorter, build_index_streamed,
                                         iter_fasta_chunks, lex_block_to_text,
                                         run_length, stream_sorted_sites,
                                         write_sites_text)
@@ -59,7 +59,7 @@ def test_parallel_scan_matches_serial(genome_file, tmp_path):
 def test_merged_blocks_multi_sorter(tmp_path, rng):
     """Several sorters sharing one directory merge into one sorted
     stream (the per-worker spill layout)."""
-    from crackling_tpu.index.stream import merged_blocks
+    from crackling_jax.index.stream import merged_blocks
 
     keys = rng.integers(0, 1 << 40, size=120_000, dtype=np.uint64)
     sorters = [SpillSorter(tmp_dir=tmp_path / "m", run_size=7_000,
@@ -73,7 +73,7 @@ def test_merged_blocks_multi_sorter(tmp_path, rng):
 
 def test_fasta_reader_edge_cases(tmp_path, monkeypatch):
     """No trailing newline, blank lines, CRLF, tiny read blocks."""
-    from crackling_tpu.index import stream as stream_mod
+    from crackling_jax.index import stream as stream_mod
 
     p = tmp_path / "edge.fa"
     p.write_bytes(b">r1\r\nACGT\r\n\r\nTTGGA\n>r2\nCCAAT")
@@ -123,7 +123,7 @@ def test_streamed_text_matches_inmemory(genome_file, tmp_path):
     assert n == total
 
     # in-memory reference: extract + lex sort + string render
-    from crackling_tpu.codec import sigs_to_strings
+    from crackling_jax.codec import sigs_to_strings
 
     sigs = np.concatenate(
         [extract_offtarget_sites_seq(seq.encode(), to_upper=True)
@@ -148,8 +148,8 @@ def test_streamed_index_matches_inmemory(genome_file, tmp_path):
 
 
 def test_lex_block_to_text_roundtrip(rng):
-    from crackling_tpu.codec import sigs_to_strings
-    from crackling_tpu.index.build import lex_to_lofirst_checked
+    from crackling_jax.codec import sigs_to_strings
+    from crackling_jax.index.build import lex_to_lofirst_checked
 
     lex = rng.integers(0, 1 << 40, size=100, dtype=np.uint64)
     txt = lex_block_to_text(lex, 20).tobytes().decode()
@@ -165,7 +165,7 @@ def test_build_index_from_sites_text(tmp_path, genome_file):
     sites_txt = tmp_path / "sites.txt"
     write_sites_text(blocks, sites_txt)
 
-    from crackling_tpu.index.stream import build_index_from_sites_text
+    from crackling_jax.index.stream import build_index_from_sites_text
 
     sigs = np.concatenate([
         extract_offtarget_sites_seq(seq.encode(), to_upper=True)

@@ -1,6 +1,6 @@
 import numpy as np
 
-from crackling_tpu.ops import tables
+from crackling_jax.ops import tables
 
 
 def test_cfd_tables_spot_values():

@@ -10,7 +10,7 @@ import csv
 import os
 import pickle
 
-from crackling_tpu.pipeline import transcripts as tr
+from crackling_jax.pipeline import transcripts as tr
 
 
 def test_sample_fixture_counts():
